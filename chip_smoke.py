@@ -158,16 +158,25 @@ def make_stripes(k: int, lo: int, hi: int, seed: int, dev):
 
 
 # ------------------------------------------------------------- bounds
-def stripe_bound(S_: int, R: int, coefs, with_p: bool, with_q: bool):
-    """(bound_ms, bound_by) of one stripe launch: bytes each way vs int32 ops."""
-    words = S_ * R * 128
+def stripe_bound(seal: bool, R: int, n_words, coefs, with_p: bool, with_q: bool):
+    """(bound_ms, bound_by) of one stripe launch: bytes each way vs int32 ops,
+    counted for this stripe's ragged shards (``n_words`` valid words each,
+    padded to R rows of 128 words).  Only the valid words need a keystream
+    and an XOR; the seal's padding seals to 0 and folds nothing into P/Q,
+    while the unseal folds every stored word."""
+    S_, words = len(n_words), len(n_words) * R * 128
     n_par = int(with_p) + int(with_q)
-    nbytes = 4 * words * 2 + 4 * R * 128 * n_par + S_ * 13 * 4
-    ops = S_ * R * 8 * (20 * 4 * 12 + 16)          # ChaCha20 rounds + feed-forward
-    ops += words * (2 + int(with_p))               # XOR, length mask, P fold
-    if with_q:                                     # SWAR GF multiply: 6 per xtime step
-        ops += sum(R * 128 * (6 * int(c).bit_length() + bin(int(c)).count("1"))
-                   for c in coefs)
+    valid = sum(n_words)
+    read = valid if seal else words                # seal reads only the valid codes
+    nbytes = 4 * read + 4 * words + 4 * R * 128 * n_par + S_ * 13 * 4
+    ops = sum(-(-n // 16) for n in n_words) * (20 * 4 * 12 + 16)  # ChaCha20 + feed-forward
+    ops += valid                                   # XOR with the keystream
+    folded = [n if seal else R * 128 for n in n_words]
+    if with_p:
+        ops += sum(folded)
+    if with_q:                                     # SWAR GF multiply by g^s: 5 ops per
+        ops += sum(m * (5 * (int(c).bit_length() - 1) + bin(int(c)).count("1"))
+                   for m, c in zip(folded, coefs))  # xtime step, 1 XOR per set bit
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -234,9 +243,10 @@ def phase_kernels(dev):
         errs["polymul"].append((got, want))
         print(f"kernel polymul n={n} B={batch}: exact")
 
-    # timings at the path's shapes; the seal/unseal inputs rotate over
-    # copies larger than L2 together, as a batch of fresh stripes would
-    n_rot = 6
+    # timings at the path's shapes; the seal/unseal inputs rotate over 10
+    # copies (68 MB at R = 1656, more than the 50 MB of L2), as a batch of
+    # fresh stripes would
+    n_rot = 10
     codes_rot = [codes.clone() for _ in range(n_rot)]
     sealed_rot = [sealed[0].clone() for _ in range(n_rot)]
     vec1 = torch.randint(0, q, (1, n), generator=g, dtype=torch.int32).to(dev)
@@ -244,11 +254,11 @@ def phase_kernels(dev):
         "seal": ("stripe_kernel",
                  lambda i: seal_stripe_kernel(codes_rot[i % n_rot], *meta),
                  lambda i: seal_ref.seal_stripe_ref(codes_rot[i % n_rot], *meta),
-                 stripe_bound(S, R, coefs, True, True)),
+                 stripe_bound(True, R, n_words, coefs, True, True)),
         "unseal": ("stripe_kernel",
                    lambda i: unseal_stripe_kernel(sealed_rot[i % n_rot], *meta),
                    lambda i: seal_ref.unseal_stripe_ref(sealed_rot[i % n_rot], *meta),
-                   stripe_bound(S, R, coefs, True, True)),
+                   stripe_bound(False, R, n_words, coefs, True, True)),
         "polymul": ("negacyclic_kernel",
                     lambda i: negacyclic_matmul(a, vec1, q),
                     lambda i: poly_ref.negacyclic_matmul_ref(a, vec1, q),

@@ -23,10 +23,12 @@
 //
 // Bound.  The kernel moves ~2 bytes of device memory per payload byte, but
 // ChaCha20 costs ~15 int32 operations per byte and the SWAR GF(256) multiply
-// of RAID-6 Q up to ~13 more, so it is bound by integer issue rate (132 SMs
+// of RAID-6 Q up to ~9 more, so it is bound by integer issue rate (132 SMs
 // x 64 INT32 lanes x clock), not by HBM.  Rotates use __funnelshift_l (one
 // SHF each), and the GF multiply walks only the set span of the per-shard
-// coefficient g^s.  One thread per block gives R*8 threads per stripe, which
+// coefficient g^s.  Ragged shards are padded to the longest, so a block
+// wholly past its shard's n_valid skips the keystream: the seal stores zeros
+// and folds nothing, the unseal stores zero codes and folds the stored words.  One thread per block gives R*8 threads per stripe, which
 // leaves most of the card idle for short stripes; splitting shards across
 // warps with a shared-memory P/Q reduce is the next step for speed.
 
@@ -74,18 +76,23 @@ __device__ __forceinline__ void chacha20_block(const uint32_t* key,
 
 // acc[i] ^= coef * x[i] in GF(256) (poly 0x11D), 4 bytes per word: peasant
 // product with xtime in SWAR form, so no byte carries into the next.  The
-// loop ends at coef's top set bit (bits above it add nothing); coef is the
-// same for every thread, so the branch does not diverge.
+// loop ends at coef's top set bit (bits above it add nothing, and no xtime
+// follows it); coef is the same for every thread, so the branch does not
+// diverge.
 __device__ __forceinline__ void gf_mul_acc(uint32_t acc[16], const uint32_t src[16],
                                            uint32_t coef) {
   uint32_t x[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) x[i] = src[i];
-  for (; coef; coef >>= 1) {
-    const bool take = coef & 1u;
+  while (coef) {
+    if (coef & 1u) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[i] ^= x[i];
+    }
+    coef >>= 1;
+    if (!coef) break;  // no xtime after the top set bit
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
-      if (take) acc[i] ^= x[i];
       const uint32_t hi = (x[i] >> 7) & 0x01010101u;
       x[i] = ((x[i] << 1) & 0xFEFEFEFEu) ^ (hi * 0x1Du);
     }
@@ -130,14 +137,31 @@ stripe_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   for (int i = 0; i < 16; ++i) { p[i] = 0u; q[i] = 0u; }
 
   for (int s = 0; s < S; ++s) {
-    uint32_t ks[16], data[16], res[16];
-    chacha20_block(keys + 8 * s, nonces + 3 * s, static_cast<uint32_t>(blk), ks);
     const int64_t base = s * shard_words + w0;
-    load16(in + base, data);
     const int64_t nv = n_valid[s];
+    const bool live = w0 < nv;  // the block holds at least one valid word
+    uint32_t data[16], res[16];
+    if (kSeal && !live) {
+      // past the payload the sealed words are 0: no keystream, no input, no
+      // parity to fold
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
-      res[i] = (w0 + i < nv) ? (data[i] ^ ks[i]) : 0u;
+      for (int i = 0; i < 16; ++i) res[i] = 0u;
+      store16(out + base, res);
+      continue;
+    }
+    load16(in + base, data);
+    if (live) {
+      uint32_t ks[16];
+      chacha20_block(keys + 8 * s, nonces + 3 * s, static_cast<uint32_t>(blk), ks);
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        res[i] = (w0 + i < nv) ? (data[i] ^ ks[i]) : 0u;
+    } else {
+      // unseal past the payload: codes are 0, parity still folds the stored
+      // words (a scrub must see a flipped bit there)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) res[i] = 0u;
+    }
     store16(out + base, res);
     // parity over the sealed words: the seal's output, the unseal's input
     const uint32_t* sealed = kSeal ? res : data;

@@ -21,11 +21,16 @@ def polymul_fixed(a: torch.Tensor, vecs: torch.Tensor, q: int) -> torch.Tensor:
     """(a * vecs[i]) mod (x^n + 1, q) for every row i.
 
     a: (n,) integers; vecs: (B, n) integers on a's device -> (B, n) int32
-    in [0, q).
+    in [0, q).  Both the kernel and the plain version reduce any int32 mod
+    q, so only other dtypes are reduced (exactly, in int64) and cast here.
     """
-    a = torch.remainder(a.to(torch.int64), q).to(torch.int32)
-    vecs = torch.remainder(vecs.to(torch.int64), q).to(torch.int32)
-    return negacyclic_matmul(a, vecs, q)
+    return negacyclic_matmul(_as_int32_mod(a, q), _as_int32_mod(vecs, q), q)
+
+
+def _as_int32_mod(x: torch.Tensor, q: int) -> torch.Tensor:
+    if x.dtype == torch.int32:
+        return x.contiguous()
+    return torch.remainder(x.to(torch.int64), q).to(torch.int32)
 
 
 def polymul(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:

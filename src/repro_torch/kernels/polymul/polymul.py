@@ -40,9 +40,10 @@ def negacyclic_matmul(a: torch.Tensor, vecs: torch.Tensor, q: int) -> torch.Tens
     _build.require(a, "a", torch.int32, (n,), a.device)
     _build.require(vecs, "vecs", torch.int32, (B, n), a.device)
     out = torch.empty((B, n), dtype=torch.int32, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    status = _build.function("polymul", "negacyclic_launch", _ARGTYPES)(
-        a.data_ptr(), vecs.data_ptr(), out.data_ptr(), n, B, q, stream)
+    launch = _build.function("polymul", "negacyclic_launch", _ARGTYPES)
+    with torch.cuda.device(a.device):  # the launch goes to the current device's context
+        status = launch(a.data_ptr(), vecs.data_ptr(), out.data_ptr(), n, B, q,
+                        torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(status, "negacyclic_launch")
     _build.LAUNCHES["polymul"] += 1
     return out

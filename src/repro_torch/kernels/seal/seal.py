@@ -51,13 +51,14 @@ def _launch(mode: int, inp, out, keys, nonces, n_valid, q_coef, parity: str) -> 
     _build.require(q_coef, "q_coef", torch.uint32, (S, 1), dev)
     p = torch.empty((R, LANES), dtype=torch.uint32, device=dev) if with_p else None
     q = torch.empty((R, LANES), dtype=torch.uint32, device=dev) if with_q else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    status = _build.function("seal", "stripe_launch", _ARGTYPES)(
-        mode, inp.data_ptr(), out.data_ptr(),
-        p.data_ptr() if with_p else None, q.data_ptr() if with_q else None,
-        keys.data_ptr(), nonces.data_ptr(), n_valid.data_ptr(), q_coef.data_ptr(),
-        S, R, int(with_p), int(with_q), stream,
-    )
+    launch = _build.function("seal", "stripe_launch", _ARGTYPES)
+    with torch.cuda.device(dev):  # the launch goes to the current device's context
+        status = launch(
+            mode, inp.data_ptr(), out.data_ptr(),
+            p.data_ptr() if with_p else None, q.data_ptr() if with_q else None,
+            keys.data_ptr(), nonces.data_ptr(), n_valid.data_ptr(), q_coef.data_ptr(),
+            S, R, int(with_p), int(with_q), torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(status, "stripe_launch")
     return out, p, q
 

@@ -68,6 +68,9 @@ def test_polymul_kernel_matches_plain(cuda):
     a = torch.randint(0, q, (n,), generator=g, dtype=torch.int32).to(cuda)
     vecs = torch.randint(0, q, (5, n), generator=g, dtype=torch.int32).to(cuda)
     assert _same(negacyclic_matmul(a, vecs, q), poly_ref.negacyclic_matmul_ref(a, vecs, q))
+    # any int32 is reduced mod q in the kernel, as in the plain version
+    wide = vecs * 1000 - 2**30
+    assert _same(negacyclic_matmul(a - q, wide, q), poly_ref.negacyclic_matmul_ref(a, wide, q))
 
 
 def test_card_archive_equals_cpu_archive(cuda):
@@ -96,3 +99,21 @@ def test_wrapper_raises_on_bad_operands(cuda):
         seal_stripe_kernel(codes[:, :, :100], *meta)
     with pytest.raises(TypeError):
         seal_stripe_kernel(codes.to(torch.int32), *meta)
+
+
+def test_kernels_launch_on_a_device_that_is_not_current(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs: launches on cuda:1 while cuda:0 is current")
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    flats, codes, meta = _stripe(dev, [5000, 300, 4096], 4)
+    got = seal_stripe_kernel(codes, *meta)
+    assert all(_same(a, b) for a, b in zip(got, seal_ref.seal_stripe_ref(codes, *meta)))
+    back = unseal_stripe_kernel(got[0], *meta)
+    assert all(_same(a, b) for a, b in zip(back, seal_ref.unseal_stripe_ref(got[0], *meta)))
+    g = torch.Generator().manual_seed(1)
+    q, n = 12289, 256
+    a = torch.randint(0, q, (n,), generator=g, dtype=torch.int32).to(dev)
+    vecs = torch.randint(0, q, (3, n), generator=g, dtype=torch.int32).to(dev)
+    assert _same(negacyclic_matmul(a, vecs, q), poly_ref.negacyclic_matmul_ref(a, vecs, q))
+    assert torch.cuda.current_device() == 0

@@ -44,6 +44,18 @@ def test_polymul_fixed_matches(n, batch, q):
     assert got.dtype == torch.int32 and _eq(got, want)
 
 
+@pytest.mark.parametrize("dtype,lim", [(np.int32, 2**31 - 1), (np.int64, 2**40)])
+def test_polymul_fixed_reduces_any_integer_input(dtype, lim):
+    q, n = 12289, 64
+    rng = np.random.default_rng(11)
+    a = rng.integers(-lim, lim, n).astype(dtype)
+    vecs = rng.integers(-lim, lim, (3, n)).astype(dtype)
+    want = jpoly.polymul_fixed(jnp.asarray(np.mod(a, q).astype(np.int32)),
+                               jnp.asarray(np.mod(vecs, q).astype(np.int32)), q)
+    got = tpoly.polymul_fixed(torch.from_numpy(a), torch.from_numpy(vecs), q)
+    assert got.dtype == torch.int32 and _eq(got, want)
+
+
 def test_polymul_general_and_matrix_match():
     rng = np.random.default_rng(3)
     q = 12289
