@@ -1,27 +1,32 @@
 """Archival pipeline at payload level: seal stripes, restore, degraded read,
 zero-key parity scrub.
 
-Port of the payload-level half of ``repro.core.archival.pipeline``, for the
-chained write path that serves ``codec_name`` ``"none"``, ``"zlib"`` and
-``"zstd"``:
+Port of the payload-level half of ``repro.core.archival.pipeline``, on the
+chained write path, for every ``codec_name``: ``"rans"`` (the default),
+``"none"``, ``"zlib"`` and ``"zstd"``:
 
 * write: ``seal_payload_stripes`` (and its ``_dispatch`` / ``_finalize``
-  halves) seals K stripes; per stripe, the host codec (if any) compresses
-  each shard, the R-LWE KEM encapsulates one ChaCha20 session key per shard
-  (ring products on the polymul kernel), and ONE launch of the stripe
-  kernel packs, seals and RAID-codes all S shards (``kernels.seal``);
+  halves) seals K stripes; per stripe, the entropy stage codes each shard
+  (``"rans"``: one launch of the on-device rANS encoder for the stripe,
+  ``kernels.entropy``; host codecs compress on the host), the R-LWE KEM
+  encapsulates one ChaCha20 session key per shard (ring products on the
+  polymul kernel), and ONE launch of the stripe kernel packs, seals and
+  RAID-codes all S shards (``kernels.seal``).  This is the reference's
+  chained path (``entropy_fn``/``seal_fn``), bit-identical to its one-launch
+  fused write;
 * read: ``restore_stripe_payloads`` unseals with the parity
   recompute-and-compare check (full reads), unseals only the named shards
   (subset reads, global shard ids keep the Q coefficient right), and
   rebuilds lost shards from P/Q first (degraded reads, ``recover_stripe``);
+  then decodes by the recorded codec (rANS: one decode launch over the
+  coded shards, by the recorded stream version);
 * durability: ``recompute_stripe_parity`` drives the same unseal kernel with
   ZERO keys, since parity is defined over the sealed bodies, and returns the
   P/Q strips that a scrubber compares with the stored ones
   (``raid.raid6_syndrome_locate`` names the corrupt shard).
 
-``codec_name="rans"`` (the on-device rANS coder and the one-launch fused
-entropy+seal kernel) is the next slice of the port and raises
-``NotImplementedError`` here, on seal and on restore of a rANS manifest.
+The one-launch fused entropy+seal write (the reference's default for
+``"rans"``, kernel ``_entropy_seal_kernel``) is the next slice of the port.
 Telemetry (``repro.obs`` spans and the byte ledger) is not ported yet.
 
 Randomness: where the reference takes one ``jax.random`` key per stripe and
@@ -41,6 +46,7 @@ from repro_torch.core.archival import raid
 from repro_torch.core.crypto import rlwe
 from repro_torch.core.crypto.hybrid import SealedBlock, encapsulate_session
 from repro_torch.kernels import as_payload_list, as_tensor, resolve_device
+from repro_torch.kernels.entropy import ops as entropy_ops
 from repro_torch.kernels.seal import ops as seal_ops
 
 __all__ = [
@@ -63,16 +69,10 @@ __all__ = [
     "recompute_stripe_parity",
 ]
 
-RANS_NOT_PORTED = (
-    "codec 'rans' (on-device rANS and the fused entropy+seal kernel) comes with "
-    "the next slice of repro_torch; use codec_name 'none', 'zlib' or 'zstd'"
-)
-
-
 class ArchiveConfig(NamedTuple):
     rlwe: rlwe.RLWEParams = rlwe.RLWEParams()
     parity: str = "raid6"  # "raid5" | "raid6" | "none"
-    # entropy stage: "rans" (next slice) | "zstd"/"zlib" (host codec) | "none"
+    # entropy stage: "rans" (on-device) | "zstd"/"zlib" (host codec) | "none"
     codec_name: str = "rans"
 
 
@@ -91,7 +91,7 @@ class StripeArchive(NamedTuple):
 class PendingStripeSeal(NamedTuple):
     """A dispatched stripe-seal batch.  The chained path's launches are
     already queued on the card's stream; finalize hands the archives over.
-    (The rANS path's in-flight kernel handle comes with the next slice.)"""
+    (The fused write's in-flight kernel handle comes with the next slice.)"""
 
     archives: List[StripeArchive]
 
@@ -111,14 +111,19 @@ def _pub_on(pub: rlwe.PublicKey, device: torch.device) -> rlwe.PublicKey:
 
 
 # ------------------------------------------------------------ entropy stage
+def _device_of(flats: Sequence) -> Optional[torch.device]:
+    """The device of the first tensor payload (None: the caller's default)."""
+    return next((f.device for f in flats if isinstance(f, torch.Tensor)), None)
+
+
 def entropy_encode_payloads(flats: List[torch.Tensor], cfg: ArchiveConfig = ArchiveConfig()):
     """Entropy-code S shard payloads per ``cfg.codec_name``.
 
     Returns (compressed flats on the payloads' device, per-shard entropy
-    metas for the manifests).  Host codecs pull each payload to the host:
-    that is what a host codec is, and the traffic the on-device coder of the
-    next slice removes.  A shard the codec cannot shrink is stored raw and
-    flagged ``"raw"``.
+    metas for the manifests).  ``"rans"`` codes all shards in one launch on
+    their device.  Host codecs pull each payload to the host: that is what a
+    host codec is, and the traffic the on-device coder removes.  A shard the
+    codec cannot shrink is stored raw and flagged ``"raw"``.
     """
     name = cfg.codec_name
     if name == "none":
@@ -127,7 +132,7 @@ def entropy_encode_payloads(flats: List[torch.Tensor], cfg: ArchiveConfig = Arch
             for f in flats
         ]
     if name == "rans":
-        raise NotImplementedError(RANS_NOT_PORTED)
+        return entropy_ops.encode_payloads(flats, device=_device_of(flats))
     if name in ("zstd", "zlib"):
         comps, metas = [], []
         for f in flats:
@@ -157,7 +162,7 @@ def entropy_decode_payloads(comps: List[torch.Tensor], metas: List[Dict]) -> Lis
     if name == "none":
         return list(comps)
     if name == "rans":
-        raise NotImplementedError(RANS_NOT_PORTED)
+        return entropy_ops.decode_payloads(comps, metas, device=_device_of(comps))
     if name in ("zstd", "zlib"):
         out = []
         for c, m in zip(comps, metas):
@@ -195,13 +200,12 @@ def seal_payload_stripe(pub: rlwe.PublicKey, flats, manifests: List[Dict],
     """Entropy-code + seal pre-encoded payloads as one parity stripe.
 
     flats: S flat int8 payloads; manifests: S dicts, each with ``"n_i8"``.
-    One stripe-kernel launch seals all shards; the per-shard KEM runs first
-    (one ring product per call on the polymul kernel).  ``pad_rows`` is the
-    caller's row bucket for the RAW payloads; host codecs re-bucket it on
-    the compressed sizes.
+    The entropy stage runs first (``"rans"``: one encode launch), then the
+    per-shard KEM (ring products on the polymul kernel), then one
+    stripe-kernel launch seals all shards.  ``pad_rows`` is the caller's row
+    bucket for the RAW payloads; an entropy codec re-buckets it on the
+    compressed sizes.
     """
-    if cfg.codec_name == "rans":
-        raise NotImplementedError(RANS_NOT_PORTED)
     device = resolve_device(device)
     pub = _pub_on(pub, device)
     flats, emetas = entropy_encode_payloads(as_payload_list(flats, device), cfg)
@@ -231,8 +235,6 @@ def seal_payload_stripes_dispatch(pub: rlwe.PublicKey, stripes: List[List[torch.
     if not (n == len(manifests) == len(generators)):
         raise ValueError(f"{n} stripes vs {len(manifests)} manifests / "
                          f"{len(generators)} generators")
-    if cfg.codec_name == "rans":
-        raise NotImplementedError(RANS_NOT_PORTED)
     pr_list = list(pad_rows) if isinstance(pad_rows, (list, tuple)) else [pad_rows] * n
     return PendingStripeSeal([
         seal_payload_stripe(pub, f, m, g, cfg, pad_rows=pr, device=device)

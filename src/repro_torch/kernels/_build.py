@@ -28,13 +28,14 @@ __all__ = ["SOURCES", "LAUNCHES", "build", "function", "reset_launches", "check"
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
-SOURCES = ("seal", "polymul")
+SOURCES = ("seal", "polymul", "rans")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES: Dict[str, int] = {"seal": 0, "unseal": 0, "polymul": 0}
+LAUNCHES: Dict[str, int] = {"seal": 0, "unseal": 0, "polymul": 0, "rans_encode": 0,
+                            "rans_decode": 0, "rans_decode_v0": 0}
 
 _lock = threading.RLock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -15,6 +15,12 @@ import numpy as np  # noqa: E402
 from repro_torch.core.archival import pipeline  # noqa: E402
 from repro_torch.core.crypto import rlwe  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.entropy import ref as rans_ref  # noqa: E402
+from repro_torch.kernels.entropy.rans import (  # noqa: E402
+    rans_decode_kernel,
+    rans_decode_v0_kernel,
+    rans_encode_kernel,
+)
 from repro_torch.kernels.polymul import ref as poly_ref  # noqa: E402
 from repro_torch.kernels.polymul.polymul import negacyclic_matmul  # noqa: E402
 from repro_torch.kernels.seal import ops as seal_ops  # noqa: E402
@@ -88,6 +94,68 @@ def test_card_archive_equals_cpu_archive(cuda):
         assert all(_same(a, b.to(dev)) for a, b in zip(got, flats))
         out.append(st)
     card, cpu = out
+    for a, b in zip(card.blocks, cpu.blocks):
+        assert _same(a.sealed.body, b.sealed.body)
+    assert _same(card.parity["q"], cpu.parity["q"])
+
+
+def _rans_stripe(cuda, T, lens, seed):
+    """Zero-padded (S, T, 128) codes: Laplacian shards, and an incompressible
+    one at index 2, with their (S, 1) n_valid."""
+    rng = np.random.default_rng(seed)
+    codes = np.zeros((len(lens), T * 128), np.int8)
+    for s, n in enumerate(lens):
+        codes[s, :n] = (rng.integers(-128, 128, n) if s == 2 else
+                        np.clip(np.round(rng.laplace(0, 3, n)), -127, 127))
+    n_valid = np.array(lens, np.int32).reshape(-1, 1)
+    return (torch.from_numpy(codes.reshape(len(lens), T, 128)).to(cuda),
+            torch.from_numpy(n_valid).to(cuda))
+
+
+@pytest.mark.parametrize("T", [8, 256])
+def test_rans_kernels_match_plain(cuda, T):
+    full = T * 128
+    codes, n_valid = _rans_stripe(cuda, T, [full, 0, full, full - 1, 129, 1], T)
+    launches = dict(_build.LAUNCHES)
+    enc = rans_encode_kernel(codes, n_valid)
+    assert all(_same(a, b) for a, b in zip(enc, rans_ref.rans_encode_ref(codes, n_valid)))
+    words, mask, freq, states = enc
+    m = mask.bool()
+    n_words = m.sum((1, 2)).tolist()
+    stream = torch.zeros((len(n_words), max(n_words) + 1), dtype=torch.int16, device=cuda)
+    lane_major = torch.zeros_like(stream)
+    for s, n in enumerate(n_words):
+        stream[s, :n] = words[s][m[s]]
+        lane_major[s, :n] = words[s].t()[m[s].t()]
+    dec = rans_decode_kernel(stream, freq, states, n_valid, rows=T)
+    assert _same(dec, rans_ref.rans_decode_ref(stream, freq, states, n_valid, rows=T))
+    assert _same(dec, codes)
+    lane_lens = mask.sum(1, dtype=torch.int32)
+    dec0 = rans_decode_v0_kernel(lane_major, lane_lens, freq, states, n_valid, rows=T)
+    assert _same(dec0, rans_ref.rans_decode_ref_v0(lane_major, lane_lens, freq, states, n_valid,
+                                                   rows=T))
+    assert _same(dec0, codes)
+    assert all(_build.LAUNCHES[k] == launches[k] + 1
+               for k in ("rans_encode", "rans_decode", "rans_decode_v0"))
+
+
+def test_card_rans_archive_equals_cpu_archive(cuda):
+    rng = np.random.default_rng(4)
+    flats = [torch.from_numpy(np.clip(np.round(rng.laplace(0, 3, n)), -127, 127)
+                              .astype(np.int8)) for n in (50000, 3000, 70000, 1000)]
+    manifests = [{"n_i8": int(f.shape[0])} for f in flats]
+    cfg = pipeline.ArchiveConfig()
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        g = torch.Generator().manual_seed(5)
+        pub, s = rlwe.keygen(g, device=dev)
+        st = pipeline.seal_payload_stripe(pub, [f.to(dev) for f in flats], manifests, g, cfg,
+                                          device=dev)
+        got, _ = pipeline.restore_stripe_payloads(s, st, cfg, device=dev)
+        assert all(_same(a, b.to(dev)) for a, b in zip(got, flats))
+        out.append(st)
+    card, cpu = out
+    assert [b.manifest for b in card.blocks] == [b.manifest for b in cpu.blocks]
     for a, b in zip(card.blocks, cpu.blocks):
         assert _same(a.sealed.body, b.sealed.body)
     assert _same(card.parity["q"], cpu.parity["q"])

@@ -3,9 +3,10 @@ package and the port both ways, through ``repro_torch.core.archival.interop``
 and the on-disk form (JSON records, ``<u4`` bodies, u8 parity).
 
 Full restores, degraded reads with one and two lost shards, subset reads and
-the zero-key parity scrub agree byte for byte, for codecs ``none`` and
-``zlib`` (and ``zstd`` from JAX to the port).  JAX seals with its Pallas
-kernels in interpret mode.
+the zero-key parity scrub agree byte for byte, for codecs ``rans``, ``none``
+and ``zlib`` (and ``zstd`` from JAX to the port).  JAX seals with its Pallas
+kernels in interpret mode; for ``rans`` that is its default one-launch fused
+write, which the port's chained write equals byte for byte.
 """
 
 import json
@@ -20,11 +21,13 @@ import numpy as np  # noqa: E402
 
 from repro.core.archival import pipeline as jpl  # noqa: E402
 from repro.core.archival import raid as jraid  # noqa: E402
+from repro.core.crypto import hybrid as jhybrid  # noqa: E402
 from repro.core.crypto import rlwe as jrlwe  # noqa: E402
 from repro.core.crypto.hybrid import SealedBlock as JSealedBlock  # noqa: E402
 from repro_torch.core.archival import interop  # noqa: E402
 from repro_torch.core.archival import pipeline as tpl  # noqa: E402
 from repro_torch.core.archival import raid as traid  # noqa: E402
+from repro_torch.core.crypto import hybrid as thybrid  # noqa: E402
 from repro_torch.core.crypto import rlwe as trlwe  # noqa: E402
 
 CPU = "cpu"
@@ -86,7 +89,7 @@ def keys():
     return jpub, js, tpub, ts
 
 
-@pytest.mark.parametrize("codec", ["none", "zlib", "zstd"])
+@pytest.mark.parametrize("codec", ["rans", "none", "zlib", "zstd"])
 def test_jax_sealed_restores_in_port(keys, codec):
     jpub, js, tpub, ts = keys
     flats, manifests = _payloads(1)
@@ -114,7 +117,7 @@ def test_jax_sealed_restores_in_port(keys, codec):
     assert all(np.array_equal(back[2][k], state[2][k]) for k in state[2])
 
 
-@pytest.mark.parametrize("codec", ["none", "zlib"])
+@pytest.mark.parametrize("codec", ["rans", "none", "zlib"])
 def test_port_sealed_restores_in_jax(codec):
     # the port's own key pair: the reference decapsulates with the port's s
     g = torch.Generator().manual_seed(21)
@@ -125,7 +128,8 @@ def test_port_sealed_restores_in_jax(codec):
     [stripe] = tpl.seal_payload_stripes(pub, [[torch.from_numpy(f) for f in flats]],
                                         [manifests], [g], cfg_t, pad_rows=16, device=CPU)
     state = _via_disk(interop.stripe_to_state(stripe))
-    assert state[2]["pad_to"] == 16 * 128 or codec == "zlib"
+    # an entropy codec re-buckets pad_rows on the compressed sizes
+    assert state[2]["pad_to"] == 16 * 128 or codec != "none"
     cfg_j = jpl.ArchiveConfig(codec_name=codec)
     jstripe, metas = _jax_from_state(*state)
     got, _ = jpl.restore_stripe_payloads(jnp.asarray(s_np), jstripe, cfg_j, use_pallas=True)
@@ -199,26 +203,56 @@ def test_manifests_json_and_stripe_parity_match(keys):
                 assert np.array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
-def test_rans_is_the_next_slice(keys):
-    _, _, tpub, ts = keys
-    flats, manifests = _payloads(5)
-    tflats = [torch.from_numpy(f) for f in flats]
-    g = torch.Generator().manual_seed(0)
+def test_scrub_locates_a_flip_in_a_rans_stripe(keys):
+    """The zero-key scrub of a rANS stripe (JAX's fused write): the port
+    recomputes the stored strips, and a flipped bit in one coded shard's
+    body gives the same syndromes on both sides and is located."""
+    jpub, js, tpub, ts = keys
+    flats, manifests = _payloads(7)
+    stripe = jpl.seal_payload_stripe(jpub, [jnp.asarray(f) for f in flats], manifests,
+                                     jax.random.PRNGKey(8), jpl.ArchiveConfig(),
+                                     use_pallas=True)
+    state = _jax_to_state(stripe)
+    assert not state[0][2]["manifest"]["entropy"].get("raw")  # shard 2 is coded
+    got = tpl.recompute_stripe_parity(interop.stripe_from_state(*state, device=CPU), device=CPU)
+    assert all(np.array_equal(got[k], state[2][k]) for k in ("p", "q"))
+    bodies = [b.copy() for b in state[1]]
+    bodies[2][300] ^= np.uint32(1 << 3)
+    tbad = interop.stripe_from_state(state[0], bodies, state[2], device=CPU)
+    got = tpl.recompute_stripe_parity(tbad, device=CPU)
+    want = jpl.recompute_stripe_parity(_jax_from_state(state[0], bodies, state[2])[0],
+                                       use_pallas=True)
+    sp, sq = got["p"] ^ state[2]["p"], got["q"] ^ state[2]["q"]
+    assert np.array_equal(sp, want["p"] ^ state[2]["p"]) and sp.any()
+    assert np.array_equal(sq, want["q"] ^ state[2]["q"])
+    assert traid.raid6_syndrome_locate(sp, sq, 4) == 2
+    with pytest.raises(ValueError, match="parity mismatch"):
+        tpl.restore_stripe_payloads(ts, tbad, device=CPU)
+
+
+def test_default_config_seals_rans_like_jax(keys):
+    """``ArchiveConfig()`` seals rANS in both packages: the port's chained
+    write gives the manifests, body lengths and parity geometry of JAX's
+    default fused write, and its sealed bodies hold the same streams."""
+    jpub, js, tpub, ts = keys
+    flats, manifests = _payloads(5, lens=(3000, 1237, 4096, 700))
     cfg = tpl.ArchiveConfig()
-    assert cfg.codec_name == "rans"
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tpl.seal_payload_stripe(tpub, tflats, manifests, g, cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tpl.seal_payload_stripes(tpub, [tflats], [manifests], [g], cfg, device=CPU)
-    # a stripe whose manifests record rANS does not restore under another codec
-    stripe = tpl.seal_payload_stripe(tpub, tflats, manifests, g,
-                                     tpl.ArchiveConfig(codec_name="none"), device=CPU)
-    rans = tpl.StripeArchive(
-        [b._replace(manifest=dict(b.manifest, entropy={"codec": "rans", "n_raw": 1,
-                                                       "n_comp": 1}))
-         for b in stripe.blocks], stripe.parity)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tpl.restore_stripe_payloads(ts, rans, tpl.ArchiveConfig(codec_name="none"), device=CPU)
+    assert cfg.codec_name == jpl.ArchiveConfig().codec_name == "rans"
+    g = torch.Generator().manual_seed(0)
+    [port] = tpl.seal_payload_stripes(tpub, [[torch.from_numpy(f) for f in flats]],
+                                      [manifests], [g], cfg, device=CPU)
+    ref = jpl.seal_payload_stripe(jpub, [jnp.asarray(f) for f in flats], manifests,
+                                  jax.random.PRNGKey(5), jpl.ArchiveConfig(), use_pallas=True)
+    assert [b.manifest for b in port.blocks] == [b.manifest for b in ref.blocks]
+    assert port.blocks[3].manifest["entropy"]["raw"]  # 700 bytes: smaller than a header
+    assert [b.sealed.n_valid_u32 for b in port.blocks] == [b.sealed.n_valid_u32
+                                                            for b in ref.blocks]
+    assert port.parity["pad_to"] == ref.parity["pad_to"]
+    for bp, bj in zip(port.blocks, ref.blocks):
+        assert np.array_equal(thybrid.unseal(ts, bp.sealed).view(torch.int32).numpy(),
+                              np.asarray(jhybrid.unseal(js, bj.sealed)).view(np.int32))
+    got, _ = tpl.restore_stripe_payloads(ts, port, cfg, device=CPU)
+    _same_payloads(got, flats, range(4))
 
 
 def test_restore_rejects_bad_requests(keys):
